@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from jampack_tpu.stages.ans import ans_decode, ans_encode
-from jampack_tpu.stages.models import AdaptiveModel, QuasiModel
-from jampack_tpu.format.constants import PROB_SCALE
+from jampack_jax.stages.ans import ans_decode, ans_encode
+from jampack_jax.stages.models import AdaptiveModel, QuasiModel
+from jampack_jax.format.constants import PROB_SCALE
 
 RNG = np.random.default_rng(7)
 

@@ -1,7 +1,8 @@
 """Device-resident decode pipeline: per-stage kernels, the fused full-block
-decode, and the sharded multi-chip archive decode (VERDICT r1 item 1)."""
+decode, and the sharded multi-chip archive decode."""
 
 import io
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -9,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax.runtime.pipeline import (
     Engine,
     Options,
     compress_block,
@@ -32,8 +33,8 @@ def _corpus(n: int) -> np.ndarray:
 
 
 def test_rle0_device_matches_spec():
-    from jampack_tpu.kernels.device_stages import rle0_decode_core
-    from jampack_tpu.stages.rle0 import rle0_decode, rle0_encode
+    from jampack_jax.kernels.device_stages import rle0_decode_core
+    from jampack_jax.stages.rle0 import rle0_decode, rle0_encode
 
     fn = jax.jit(rle0_decode_core, static_argnames=("out_cap",))
     for style in range(3):
@@ -54,8 +55,8 @@ def test_rle0_device_matches_spec():
 
 
 def test_rank_device_matches_spec():
-    from jampack_tpu.kernels.device_stages import rank_decode_core
-    from jampack_tpu.stages.rank import rank_decode, rank_encode
+    from jampack_jax.kernels.device_stages import rank_decode_core
+    from jampack_jax.stages.rank import rank_decode, rank_encode
 
     L, OCAP = 4, 2048
     ranks_rows = np.zeros((L, OCAP), dtype=np.uint8)
@@ -81,8 +82,8 @@ def test_rank_device_matches_spec():
 
 
 def test_lz_device_matches_spec():
-    from jampack_tpu.kernels.device_stages import lz_decode_dyn_core
-    from jampack_tpu.stages.lz77 import lz77_decode, lz77_dedupe_encode
+    from jampack_jax.kernels.device_stages import lz_decode_dyn_core
+    from jampack_jax.stages.lz77 import lz77_decode, lz77_dedupe_encode
 
     fn = jax.jit(lz_decode_dyn_core, static_argnames=("max_tokens", "out_cap"))
     CAP = 1 << 16
@@ -102,7 +103,7 @@ def test_lz_device_matches_spec():
 
 
 def test_lz_device_flags_garbage():
-    from jampack_tpu.kernels.device_stages import lz_decode_dyn_core
+    from jampack_jax.kernels.device_stages import lz_decode_dyn_core
 
     fn = jax.jit(lz_decode_dyn_core, static_argnames=("max_tokens", "out_cap"))
     CAP = 1 << 12
@@ -114,8 +115,8 @@ def test_lz_device_flags_garbage():
 
 
 def test_filters_device_matches_spec():
-    from jampack_tpu.kernels.device_stages import filters_decode_dyn_core
-    from jampack_tpu.stages.filters import filters_decode, filters_encode
+    from jampack_jax.kernels.device_stages import filters_decode_dyn_core
+    from jampack_jax.stages.filters import filters_decode, filters_encode
 
     fn = jax.jit(filters_decode_dyn_core, static_argnames=("out_cap",))
     CAP = 1 << 18
@@ -135,8 +136,8 @@ def test_filters_device_matches_spec():
 
 
 def test_ibwt_device_matches_spec():
-    from jampack_tpu.kernels.device_stages import ibwt_dyn_core
-    from jampack_tpu.stages.bwt import forward_bwt
+    from jampack_jax.kernels.device_stages import ibwt_dyn_core
+    from jampack_jax.stages.bwt import forward_bwt
 
     fn = jax.jit(ibwt_dyn_core, static_argnames=("units", "out_cap"))
     CAP = 1 << 16
@@ -163,18 +164,20 @@ def test_ibwt_device_matches_spec():
          anchor_units=8),
 ])
 def test_fused_device_decode(opts):
-    from jampack_tpu.runtime.device_decode import decode_block_device
+    from jampack_jax.runtime.device_decode import decode_block_device
 
     data = _corpus(int(RNG.integers(4000, 12000)))
     opt = Options(blocksize=1 << 20, **opts)
     crc, payload = compress_block(data, opt, Engine())
+    routes = Counter()
     out = decode_block_device(payload, crc, opt.blocksize, opt.anchor_units,
-                              opt.rans_lanes)
+                              opt.rans_lanes, routes=routes)
     assert np.array_equal(out, data)
+    assert routes == {"device": 1}
 
 
 def test_fused_device_decode_rejects_corruption():
-    from jampack_tpu.runtime.device_decode import decode_block_device
+    from jampack_jax.runtime.device_decode import decode_block_device
 
     data = _corpus(6000)
     opt = Options(blocksize=1 << 20, filters=1)
@@ -186,7 +189,7 @@ def test_fused_device_decode_rejects_corruption():
 
 
 def test_sharded_archive_decode():
-    from jampack_tpu.runtime.sharding import decode_archive_sharded, make_mesh
+    from jampack_jax.runtime.sharding import decode_archive_sharded, make_mesh
 
     n_dev = len(jax.devices())
     blocks = [_corpus(int(RNG.integers(2000, 6000)))
@@ -217,7 +220,7 @@ def test_sharded_archive_decode():
 
 def test_fused_device_decode_jt3_spans():
     """JT3 lpx_spans stream parameter through the fused device chain."""
-    from jampack_tpu.runtime.device_decode import decode_block_device
+    from jampack_jax.runtime.device_decode import decode_block_device
 
     data = _corpus(8000)
     opt = Options(blocksize=1 << 20, filters=2, rans_lanes=4, ans_chunk=2048,
@@ -229,10 +232,10 @@ def test_fused_device_decode_jt3_spans():
 
 
 def test_device_filter_search_f2_parity():
-    """Device 96-config -f2 sweep (MXU histograms + f64 near-tie rescore)
+    """Device 96-config -f2 sweep (exact joint histograms + f64 near-tie rescore)
     must pick byte-identical configs to the spec engine."""
-    from jampack_tpu.kernels.filters_search import filters_encode_f2_device
-    from jampack_tpu.stages.filters import filters_encode
+    from jampack_jax.kernels.filters_search import filters_encode_f2_device
+    from jampack_jax.stages.filters import filters_encode
 
     rng = np.random.default_rng(55)
     n = 140000
@@ -245,8 +248,8 @@ def test_device_filter_search_f2_parity():
 
 
 def test_device_filter_search_f1_parity():
-    from jampack_tpu.kernels.filters_search import filters_encode_f1_device
-    from jampack_tpu.stages.filters import filters_encode
+    from jampack_jax.kernels.filters_search import filters_encode_f1_device
+    from jampack_jax.stages.filters import filters_encode
 
     audio = (np.sin(np.arange(120000) / 25) * 90 + 128).astype(np.uint8)
     assert np.array_equal(filters_encode_f1_device(audio),
@@ -254,9 +257,9 @@ def test_device_filter_search_f1_parity():
 
 
 def test_stride_projection_fast_match_spec():
-    from jampack_tpu.kernels.filters_search import (find_projection_fast,
+    from jampack_jax.kernels.filters_search import (find_projection_fast,
                                                     find_stride_fast)
-    from jampack_tpu.stages.filters import find_projection, find_stride
+    from jampack_jax.stages.filters import find_projection, find_stride
 
     rng = np.random.default_rng(66)
     for trial in range(4):
@@ -271,15 +274,15 @@ def test_stride_projection_fast_match_spec():
         assert find_projection_fast(data) == find_projection(data)
 
 
-def test_tpu_engine_f1_f2_cross_engine_archives():
-    """TpuEngine -f1/-f2 now run the device search; archives must equal the
+def test_device_engine_f1_f2_cross_engine_archives():
+    """DeviceEngine -f1/-f2 now run the device search; archives must equal the
     spec engine's for the same Options."""
-    from jampack_tpu.runtime.engines import TpuEngine
+    from jampack_jax.runtime.engines import DeviceEngine
 
     data = _corpus(9000)
     for filters in (1, 2):
         opt = Options(blocksize=1 << 20, filters=filters)
-        crc_t, pay_t = compress_block(data, opt, TpuEngine())
+        crc_t, pay_t = compress_block(data, opt, DeviceEngine())
         crc_s, pay_s = compress_block(data, opt, Engine())
         assert crc_t == crc_s and pay_t == pay_s
 
@@ -292,8 +295,8 @@ def test_tpu_engine_f1_f2_cross_engine_archives():
 def test_rle0_encode_device_matches_spec():
     from functools import partial
 
-    from jampack_tpu.kernels.encode_stages import rle0_encode_core
-    from jampack_tpu.stages.rle0 import rle0_encode
+    from jampack_jax.kernels.encode_stages import rle0_encode_core
+    from jampack_jax.stages.rle0 import rle0_encode
 
     fn = jax.jit(partial(rle0_encode_core, rcap=3000))
     for style in range(4):
@@ -315,8 +318,8 @@ def test_rle0_encode_device_matches_spec():
 
 
 def test_rank_encode_device_matches_spec():
-    from jampack_tpu.kernels.encode_stages import rank_encode_core
-    from jampack_tpu.stages.rank import rank_encode
+    from jampack_jax.kernels.encode_stages import rank_encode_core
+    from jampack_jax.stages.rank import rank_encode
 
     L, OCAP = 4, 2048
     chunks = np.zeros((L, OCAP), np.uint8)
@@ -349,8 +352,8 @@ def test_fused_device_encode(lanes, chunk, spans, units, filters):
     """encode_block_device archives must be byte-identical to the host
     engines' for the same Options (no silent divergence across engines) —
     including -f1/-f2 through the device search + device transforms."""
-    from jampack_tpu.runtime.device_encode import encode_block_device
-    from jampack_tpu.runtime.pipeline import decompress_block
+    from jampack_jax.runtime.device_encode import encode_block_device
+    from jampack_jax.runtime.pipeline import decompress_block
 
     data = _corpus(9000)
     opt = Options(blocksize=1 << 20, match_finder=3, filters=filters,
@@ -366,7 +369,7 @@ def test_fused_device_encode(lanes, chunk, spans, units, filters):
 
 
 def test_fused_device_encode_rejects_unsupported():
-    from jampack_tpu.runtime.device_encode import encode_block_device
+    from jampack_jax.runtime.device_encode import encode_block_device
 
     with pytest.raises(NotImplementedError):
         encode_block_device(_corpus(5000),
@@ -381,7 +384,7 @@ def test_sharded_archive_encode():
     """Multi-chip encode: one raw block per device through the full fused
     chain; archive bytes identical to the host engine's compress_stream
     (including the ragged tail and the tiny-tail host fallback)."""
-    from jampack_tpu.runtime.sharding import encode_archive_sharded, make_mesh
+    from jampack_jax.runtime.sharding import encode_archive_sharded, make_mesh
 
     n_dev = len(jax.devices())
     blocksize = 6000
@@ -409,8 +412,8 @@ def test_sharded_archive_encode():
 
 def test_rank_decode_unpacked_bucket_path():
     """OCAP > 2^15 takes the two-array bucket path; same bytes as spec."""
-    from jampack_tpu.kernels.device_stages import rank_decode_core
-    from jampack_tpu.stages.rank import rank_decode, rank_encode
+    from jampack_jax.kernels.device_stages import rank_decode_core
+    from jampack_jax.stages.rank import rank_decode, rank_encode
 
     OCAP = 40000
     n = 700
@@ -430,8 +433,8 @@ def test_model_pairs_wide_matches_chain():
     """The lockstep wide model pass (encode) is op-exact with the scalar
     per-chain pass across adaptive and quasi regimes, including rescale
     steps and ragged lane lengths."""
-    from jampack_tpu.kernels.rans_encode import model_chain_pairs
-    from jampack_tpu.kernels.rans_wide import model_pairs_wide
+    from jampack_jax.kernels.rans_encode import model_chain_pairs
+    from jampack_jax.kernels.rans_wide import model_pairs_wide
 
     MR = 1500
     chains = np.zeros((3, MR), np.uint16)
@@ -462,8 +465,8 @@ def test_lpx_many_spans_regime():
     encode must split exactly (static n); the fused decode must detect
     the shape and fall back host-side — both byte/CRC-exact.  Regression
     for the jtx-fuzz divergence at seed 7711065 (4 KB block, 960 spans)."""
-    from jampack_tpu.runtime.device_decode import decode_block_device
-    from jampack_tpu.runtime.device_encode import encode_block_device
+    from jampack_jax.runtime.device_decode import decode_block_device
+    from jampack_jax.runtime.device_encode import encode_block_device
 
     data = _corpus(4200)[:4096]
     opt = Options(blocksize=1 << 20, match_finder=3, filters=0,
@@ -479,10 +482,9 @@ def test_lpx_many_spans_regime():
 
 def test_dyn_encode_one_compile_per_bucket():
     """Distinct (non-snapped) block lengths inside one pow2 capacity
-    bucket must reuse ONE XLA compile of the dyn encode core (VERDICT r2
-    item 5) — and still match the host engines byte-for-byte."""
-    from jampack_tpu.kernels.encode_stages import encode_block_dyn_core
-    from jampack_tpu.runtime.device_encode import encode_block_device
+    bucket must reuse ONE XLA compile of the dyn encode core — and still match the host engines byte-for-byte."""
+    from jampack_jax.kernels.encode_stages import encode_block_dyn_core
+    from jampack_jax.runtime.device_encode import encode_block_device
 
     opt = Options(blocksize=1 << 20, match_finder=3, filters=0,
                   rans_lanes=4, ans_chunk=2048, anchor_units=16,
@@ -498,13 +500,13 @@ def test_dyn_encode_one_compile_per_bucket():
 
 def test_fused_default_mode_golden():
     """`--engine fused c` at DEFAULT Options must produce the reference's
-    archive byte-for-byte (VERDICT r2 item 4): m0 dedupe pre-pass +
+    archive byte-for-byte: m0 dedupe pre-pass +
     configured m0 stage-4 finder on the host, filters+Lpx and BWT+entropy
     device-resident (golden_f1.jam is oracle-locked reference output)."""
     import io
     import pathlib
 
-    from jampack_tpu.runtime.sharding import encode_archive_sharded, make_mesh
+    from jampack_jax.runtime.sharding import encode_archive_sharded, make_mesh
 
     fix = pathlib.Path(__file__).parent / "fixtures"
     data = np.fromfile(fix / "golden_input.bin", dtype=np.uint8)
@@ -520,9 +522,9 @@ def test_f1_device_scores_ragged_tail():
     prev[0] wraps to the lane's last REAL byte, not the row padding.
     Regression for the on-chip parity failure (a 2-byte tail scored
     1.0 bit instead of 0.0 and flipped its -f1 pick)."""
-    from jampack_tpu.kernels.filters_search import (
+    from jampack_jax.kernels.filters_search import (
         _FBS, sorted_entropy_scores_core)
-    from jampack_tpu.stages.filters import sorted_entropy
+    from jampack_jax.stages.filters import sorted_entropy
 
     rng = np.random.default_rng(9)
     rows, lens, exact = [], [], []
@@ -543,7 +545,7 @@ def test_batched_blocks_decode():
     """B blocks in one batched device program (decode_blocks_device): the
     single-chip mirror of the reference's multi-block loop
     (jampack.cpp:286-328), bit-exact per block with per-block CRC."""
-    from jampack_tpu.runtime.device_decode import decode_blocks_device
+    from jampack_jax.runtime.device_decode import decode_blocks_device
 
     opt = Options(blocksize=1 << 20, filters=1, match_finder=0, rans_lanes=4,
                   ans_chunk=2048, anchor_units=16, lpx_spans=8)
@@ -561,7 +563,7 @@ def test_batched_blocks_decode():
 
 
 def test_batched_blocks_decode_corrupt_names_block():
-    from jampack_tpu.runtime.device_decode import decode_blocks_device
+    from jampack_jax.runtime.device_decode import decode_blocks_device
 
     opt = Options(blocksize=1 << 20, filters=1, match_finder=0, rans_lanes=4,
                   ans_chunk=2048, anchor_units=16, lpx_spans=8)
@@ -583,7 +585,7 @@ def test_batched_blocks_encode():
     """B same-length blocks in one batched device encode program
     (encode_blocks_device): per-block payloads byte-identical to the
     single-block device path / host engines."""
-    from jampack_tpu.runtime.device_encode import encode_blocks_device
+    from jampack_jax.runtime.device_encode import encode_blocks_device
 
     n = 6000
     blocks = [_corpus(n) for _ in range(3)]
@@ -599,11 +601,10 @@ def test_batched_blocks_encode():
 
 
 def test_batched_blocks_decode_mixed_spans():
-    """-Sa auto-gated archives mix spans=0 and spans=S blocks by design
-    (VERDICT r4 #6): decode_blocks_device groups blocks by span word and
+    """-Sa auto-gated archives mix spans=0 and spans=S blocks by design: decode_blocks_device groups blocks by span word and
     runs each group as its own batched device program, so mixed archives
     never fall back to the host."""
-    from jampack_tpu.runtime.device_decode import decode_blocks_device
+    from jampack_jax.runtime.device_decode import decode_blocks_device
 
     spans_per_block = [8, 0, 8, 0]
     blocks = [_corpus(int(RNG.integers(4000, 12000)))
@@ -616,16 +617,18 @@ def test_batched_blocks_decode_mixed_spans():
         crc, payload = compress_block(b, opt, Engine())
         crcs.append(crc)
         payloads.append(payload)
+    routes = Counter()
     outs = decode_blocks_device(payloads, crcs, 1 << 20, 16, 4,
-                                spans_per_block)
+                                spans_per_block, routes=routes)
     for got, want in zip(outs, blocks):
         assert np.array_equal(got, want)
+    assert routes == {"device": len(blocks)}
 
 
 def test_batched_blocks_decode_mixed_spans_corrupt_names_block():
     """The corrupt-block error index stays the CALLER's block index even
     when span grouping reorders the device batches."""
-    from jampack_tpu.runtime.device_decode import decode_blocks_device
+    from jampack_jax.runtime.device_decode import decode_blocks_device
 
     spans_per_block = [8, 0, 8]
     blocks = [_corpus(6000) for _ in spans_per_block]
@@ -649,8 +652,8 @@ def test_sharded_archive_decode_mixed_spans():
     """decode_archive_sharded reads -Sa-style archives whose blocks carry
     different span words (ADVICE r4 high): blocks group by span word, one
     sharded step per word, output in file order."""
-    from jampack_tpu.format import framing
-    from jampack_tpu.runtime.sharding import (decode_archive_sharded,
+    from jampack_jax.format import framing
+    from jampack_jax.runtime.sharding import (decode_archive_sharded,
                                               make_mesh)
 
     n_dev = len(jax.devices())
@@ -672,7 +675,7 @@ def test_sharded_archive_decode_mixed_spans():
 
 def test_batched_blocks_decode_rejects_bad_spans_list():
     """A per-block spans sequence must match the block count."""
-    from jampack_tpu.runtime.device_decode import decode_blocks_device
+    from jampack_jax.runtime.device_decode import decode_blocks_device
 
     opt = Options(blocksize=1 << 20, filters=0, match_finder=0,
                   rans_lanes=4, ans_chunk=2048, anchor_units=16,

@@ -6,14 +6,14 @@ import io
 import numpy as np
 import pytest
 
-from jampack_tpu.runtime.distributed import (
+from jampack_jax.runtime.distributed import (
     decompress_stream_part,
     initialize,
     owner,
     stitch,
 )
-from jampack_tpu.runtime.engines import NativeEngine
-from jampack_tpu.runtime.pipeline import Options, compress_stream
+from jampack_jax.runtime.engines import NativeEngine
+from jampack_jax.runtime.pipeline import Options, compress_stream
 
 RNG = np.random.default_rng(42)
 
@@ -53,7 +53,7 @@ def test_multihost_encode_stitch(tmp_path, P, tail):
     input; stitch_archive() reassembles a framed archive byte-identical to
     the single-process compress_stream's (including the trailing-empty-
     block feof parity when the input is an exact blocksize multiple)."""
-    from jampack_tpu.runtime.distributed import (
+    from jampack_jax.runtime.distributed import (
         compress_stream_part,
         stitch_archive,
     )

@@ -5,8 +5,8 @@ import io
 import numpy as np
 import pytest
 
-from jampack_tpu.runtime.engines import TpuEngine
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax.runtime.engines import DeviceEngine
+from jampack_jax.runtime.pipeline import (
     Engine,
     Options,
     compress_block,
@@ -20,7 +20,7 @@ RNG = np.random.default_rng(321)
 
 def engines():
     yield Engine()
-    yield TpuEngine()
+    yield DeviceEngine()
 
 
 @pytest.mark.parametrize("engine", list(engines()), ids=lambda e: e.name)
@@ -40,7 +40,7 @@ def test_engine_roundtrip(engine):
 
 
 def test_engines_cross_decode_each_other():
-    # TpuEngine makes its own (equally valid) filter choices, so archives
+    # DeviceEngine makes its own (equally valid) filter choices, so archives
     # may differ; every engine must decode every engine's archive.
     data = np.frombuffer(b"interop check " * 3000, dtype=np.uint8).tobytes()
     arcs = []
@@ -90,12 +90,12 @@ def test_cross_engine_decode(oracle, tmp_path):
         assert out.getvalue() == data
 
 
-def test_tpu_device_filter_search_mode_f3():
+def test_device_filter_search_mode_f3():
     """-f3: device-batched config search; still reference-format chunks."""
     import io
 
-    from jampack_tpu.runtime.engines import TpuEngine
-    from jampack_tpu.runtime.pipeline import (
+    from jampack_jax.runtime.engines import DeviceEngine
+    from jampack_jax.runtime.pipeline import (
         Options,
         compress_stream,
         decompress_stream,
@@ -106,7 +106,7 @@ def test_tpu_device_filter_search_mode_f3():
     data = (base + rng.integers(0, 2, base.size)).astype(np.uint8).tobytes()
     arc = io.BytesIO()
     compress_stream(io.BytesIO(data), arc, Options(filters=3),
-                    engine=TpuEngine())
+                    engine=DeviceEngine())
     back = io.BytesIO()
     decompress_stream(io.BytesIO(arc.getvalue()), back)
     assert back.getvalue() == data
@@ -115,11 +115,16 @@ def test_tpu_device_filter_search_mode_f3():
 def test_hybrid_engine_roundtrip_and_interop(monkeypatch):
     import io
 
-    from jampack_tpu.runtime import sysinfo
-    from jampack_tpu.runtime.engines import HybridEngine, NativeEngine
+    from jampack_jax.runtime import sysinfo
+    from jampack_jax.runtime.engines import HybridEngine, NativeEngine
 
-    # force the device-fit gate open so the TPU BWT kernels are exercised
-    # on the CPU test backend (no accelerator -> the gate would fall back)
+    # stand the CPU device in for an accelerator and force the device-fit
+    # gate open, so the device BWT kernels are exercised on the CPU test
+    # backend (the engine refuses to start without an accelerator)
+    import jax
+
+    monkeypatch.setattr(sysinfo, "accelerator_devices",
+                        lambda: jax.devices()[:1])
     monkeypatch.setattr(sysinfo, "fits_on_device", lambda n, budget=0.8: True)
 
     rng = np.random.default_rng(11)
@@ -138,13 +143,20 @@ def test_hybrid_engine_roundtrip_and_interop(monkeypatch):
     assert out.getvalue() == data
 
 
+def test_hybrid_engine_needs_an_accelerator():
+    from jampack_jax.runtime.engines import HybridEngine
+
+    with pytest.raises(RuntimeError, match="needs an accelerator"):
+        HybridEngine()
+
+
 @pytest.mark.parametrize("match_finder", [0, 1, 2, 3])
 @pytest.mark.parametrize("filters", [0, 1, 2])
 def test_spec_native_identical_archives_all_options(match_finder, filters):
     """The spec engine must produce byte-identical archives to the native
     engine for EVERY Options — no silent m1/m2 downgrade (lz77.cpp:278-441
     parity now lives in stages/lz77_mf.py)."""
-    from jampack_tpu.runtime.engines import NativeEngine
+    from jampack_jax.runtime.engines import NativeEngine
 
     rng = np.random.default_rng(1234)
     data = np.concatenate([

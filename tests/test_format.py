@@ -5,10 +5,10 @@ import io
 import numpy as np
 import pytest
 
-from jampack_tpu.format.checksum import integrity_check
-from jampack_tpu.format.framing import read_block, write_block
-from jampack_tpu.format.tables import EXPONENT, LOG, MANTISSA, MODEL_ALPHABET
-from jampack_tpu.format.varint import (
+from jampack_jax.format.checksum import integrity_check
+from jampack_jax.format.framing import read_block, write_block
+from jampack_jax.format.tables import EXPONENT, LOG, MANTISSA, MODEL_ALPHABET
+from jampack_jax.format.varint import (
     CONSTANTS,
     decode_leb128,
     encode_leb128,

@@ -13,8 +13,8 @@ import os
 import numpy as np
 import pytest
 
-from jampack_tpu.runtime.engines import NativeEngine, TpuEngine
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax.runtime.engines import NativeEngine, DeviceEngine
+from jampack_jax.runtime.pipeline import (
     Engine,
     Options,
     compress_stream,
@@ -35,8 +35,8 @@ GOLDEN_INPUT = _read("golden_input.bin")
 @pytest.mark.parametrize("arc", ["golden_f0.jam", "golden_f1.jam",
                                  "golden_f2.jam", "golden_m1.jam",
                                  "golden_m2.jam"])
-@pytest.mark.parametrize("engine_cls", [Engine, NativeEngine, TpuEngine],
-                         ids=["numpy", "native", "tpu"])
+@pytest.mark.parametrize("engine_cls", [Engine, NativeEngine, DeviceEngine],
+                         ids=["numpy", "native", "device"])
 def test_every_engine_decodes_golden(arc, engine_cls):
     out = io.BytesIO()
     decompress_stream(io.BytesIO(_read(arc)), out, engine=engine_cls())
@@ -53,8 +53,8 @@ def test_default_encode_matches_reference_bytes(engine_cls):
     assert arc.getvalue() == _read("golden_f1.jam")
 
 
-@pytest.mark.parametrize("engine_cls", [Engine, NativeEngine, TpuEngine],
-                         ids=["numpy", "native", "tpu"])
+@pytest.mark.parametrize("engine_cls", [Engine, NativeEngine, DeviceEngine],
+                         ids=["numpy", "native", "device"])
 def test_every_engine_decodes_golden_jtx(engine_cls):
     """JTX format lock: archive written at (u=960, L=16, c=256K) when the
     native container was finalized; every engine must decode it forever."""
@@ -213,9 +213,9 @@ def test_exact_multiple_trailing_empty_block(oracle, tmp_path):
 
     import numpy as np
 
-    from jampack_tpu.format import framing
-    from jampack_tpu.runtime.engines import NativeEngine
-    from jampack_tpu.runtime.pipeline import (Options, compress_stream,
+    from jampack_jax.format import framing
+    from jampack_jax.runtime.engines import NativeEngine
+    from jampack_jax.runtime.pipeline import (Options, compress_stream,
                                               decompress_stream)
 
     ne = NativeEngine()
@@ -271,8 +271,8 @@ def test_m3_store_mode_golden_bytes(oracle, tmp_path):
     assert out.read_bytes() == GOLDEN_INPUT
 
 
-@pytest.mark.parametrize("engine_cls", [Engine, NativeEngine, TpuEngine],
-                         ids=["numpy", "native", "tpu"])
+@pytest.mark.parametrize("engine_cls", [Engine, NativeEngine, DeviceEngine],
+                         ids=["numpy", "native", "device"])
 def test_every_engine_decodes_golden_jt3_prod(engine_cls):
     """JT3 production-config lock (round 5): archive written at the
     frontier-chosen stream (u=960, L=4, c=16K, -Sa — the config bench.py

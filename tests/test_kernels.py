@@ -1,16 +1,16 @@
-"""TPU kernels (run here on the CPU backend) vs the numpy executable spec."""
+"""Device kernels (run here on the CPU backend) vs the numpy executable spec."""
 
 import numpy as np
 import pytest
 
-from jampack_tpu.stages.bwt import forward_bwt, inverse_bwt, suffix_array
-from jampack_tpu.stages.ans import ans_encode_chunk, read_chunk_header
-from jampack_tpu.stages.rank import rank_decode
-from jampack_tpu.stages.rle0 import rle0_decode, rle0_encode
-from jampack_tpu.stages.rank import rank_encode
-from jampack_tpu.kernels.ibwt import inverse_bwt_tpu
-from jampack_tpu.kernels.sa import forward_bwt_tpu, suffix_array_tpu
-from jampack_tpu.kernels.rans_decode import decode_chunk_tpu
+from jampack_jax.stages.bwt import forward_bwt, inverse_bwt, suffix_array
+from jampack_jax.stages.ans import ans_encode_chunk, read_chunk_header
+from jampack_jax.stages.rank import rank_decode
+from jampack_jax.stages.rle0 import rle0_decode, rle0_encode
+from jampack_jax.stages.rank import rank_encode
+from jampack_jax.kernels.ibwt import inverse_bwt_device
+from jampack_jax.kernels.sa import forward_bwt_device, suffix_array_device
+from jampack_jax.kernels.rans_decode import decode_chunk_device
 
 RNG = np.random.default_rng(99)
 
@@ -26,30 +26,30 @@ def bwt_inputs():
 
 
 @pytest.mark.parametrize("idx", range(7))
-def test_suffix_array_tpu_matches_spec(idx):
+def test_suffix_array_device_matches_spec(idx):
     data = list(bwt_inputs())[idx]
     n = (data.size // 120) * 120
     if n == 0:
         return
-    assert np.array_equal(suffix_array_tpu(data[:n]), suffix_array(data[:n]))
+    assert np.array_equal(suffix_array_device(data[:n]), suffix_array(data[:n]))
 
 
 @pytest.mark.parametrize("idx", range(7))
-def test_forward_bwt_tpu_matches_spec(idx):
+def test_forward_bwt_device_matches_spec(idx):
     data = list(bwt_inputs())[idx]
-    assert np.array_equal(forward_bwt_tpu(data), forward_bwt(data))
+    assert np.array_equal(forward_bwt_device(data), forward_bwt(data))
 
 
 @pytest.mark.parametrize("idx", range(7))
-def test_inverse_bwt_tpu_roundtrip(idx):
+def test_inverse_bwt_device_roundtrip(idx):
     data = list(bwt_inputs())[idx]
     enc = forward_bwt(data)
-    assert np.array_equal(inverse_bwt_tpu(enc), data)
+    assert np.array_equal(inverse_bwt_device(enc), data)
 
 
-def test_bwt_tpu_full_cycle():
+def test_bwt_device_full_cycle():
     data = RNG.integers(0, 256, 50000, dtype=np.uint8)
-    assert np.array_equal(inverse_bwt_tpu(forward_bwt_tpu(data)), data)
+    assert np.array_equal(inverse_bwt_device(forward_bwt_device(data)), data)
 
 
 def ans_chunk_inputs():
@@ -62,52 +62,52 @@ def ans_chunk_inputs():
 
 
 @pytest.mark.parametrize("idx", range(5))
-def test_rans_decode_tpu_matches_spec(idx):
+def test_rans_decode_device_matches_spec(idx):
     data = list(ans_chunk_inputs())[idx]
     blob = ans_encode_chunk(data)
     freqs, olen, clen, rlen, pos = read_chunk_header(blob, 0)
     payload = np.frombuffer(blob[pos : pos + clen], dtype=np.uint8)
-    syms = decode_chunk_tpu(payload, rlen)
+    syms = decode_chunk_device(payload, rlen)
     ranked = rle0_decode(syms, olen)
     out = rank_decode(ranked, freqs)
     assert np.array_equal(out, data)
 
 
 @pytest.mark.parametrize("idx", range(5))
-def test_rans_encode_tpu_matches_spec(idx):
-    from jampack_tpu.kernels.rans_encode import encode_pairs_tpu
-    from jampack_tpu.stages.ans import encode_pairs
-    from jampack_tpu.stages.rank import rank_encode as _re
-    from jampack_tpu.stages.rle0 import rle0_encode as _rle
+def test_rans_encode_device_matches_spec(idx):
+    from jampack_jax.kernels.rans_encode import encode_pairs_device
+    from jampack_jax.stages.ans import encode_pairs
+    from jampack_jax.stages.rank import rank_encode as _re
+    from jampack_jax.stages.rle0 import rle0_encode as _rle
 
     data = list(ans_chunk_inputs())[idx]
     ranked, _ = _re(data.copy())
     syms = _rle(ranked)
-    assert encode_pairs_tpu(syms) == encode_pairs(syms)
+    assert encode_pairs_device(syms) == encode_pairs(syms)
 
 
-def test_rans_encode_lanes_tpu_matches_spec():
-    from jampack_tpu.kernels.rans_encode import encode_lanes_tpu
-    from jampack_tpu.stages.ans import encode_pairs
-    from jampack_tpu.stages.rank import rank_encode as _re
-    from jampack_tpu.stages.rle0 import rle0_encode as _rle
+def test_rans_encode_lanes_device_matches_spec():
+    from jampack_jax.kernels.rans_encode import encode_lanes_device
+    from jampack_jax.stages.ans import encode_pairs
+    from jampack_jax.stages.rank import rank_encode as _re
+    from jampack_jax.stages.rle0 import rle0_encode as _rle
 
     data = RNG.integers(0, 64, 30000, dtype=np.uint8)
     ranked, _ = _re(data.copy())
     syms = _rle(ranked)
     lanes = 8
-    got = encode_lanes_tpu([syms[l::lanes] for l in range(lanes)])
+    got = encode_lanes_device([syms[l::lanes] for l in range(lanes)])
     want = [encode_pairs(syms[l::lanes]) for l in range(lanes)]
     assert got == want
 
 
-def test_tpu_engine_ans_encode_stream_matches_spec():
-    from jampack_tpu.runtime.engines import TpuEngine
-    from jampack_tpu.stages.ans import ans_encode
+def test_device_engine_ans_encode_stream_matches_spec():
+    from jampack_jax.runtime.engines import DeviceEngine
+    from jampack_jax.stages.ans import ans_encode
 
     data = RNG.integers(0, 200, 70000, dtype=np.uint8)
     for lanes in (0, 4):
-        assert TpuEngine().ans_encode(data, 16 << 10, lanes) == ans_encode(
+        assert DeviceEngine().ans_encode(data, 16 << 10, lanes) == ans_encode(
             data, 16 << 10, lanes
         )
 
@@ -125,27 +125,27 @@ def lz_stream_inputs():
 
 @pytest.mark.parametrize("idx", range(5))
 @pytest.mark.parametrize("mode", [0, 1, 2])
-def test_lz_expand_tpu_matches_spec(idx, mode):
-    from jampack_tpu import native
-    from jampack_tpu.kernels.lz_expand import lz77_decode_tpu
-    from jampack_tpu.stages.lz77 import lz77_decode
+def test_lz_expand_device_matches_spec(idx, mode):
+    from jampack_jax import native
+    from jampack_jax.kernels.lz_expand import lz77_decode_device
+    from jampack_jax.stages.lz77 import lz77_decode
 
     raw = np.frombuffer(list(lz_stream_inputs())[idx], dtype=np.uint8)
     enc = native.lz_encode(raw, mode)
-    assert np.array_equal(lz77_decode_tpu(enc), lz77_decode(enc))
-    assert np.array_equal(lz77_decode_tpu(enc), raw)
+    assert np.array_equal(lz77_decode_device(enc), lz77_decode(enc))
+    assert np.array_equal(lz77_decode_device(enc), raw)
 
 
 def test_wide_decoder_matches_scalar_kernel():
     """Lane-vectorized decoder vs scalar chain kernel, uneven lane lengths."""
-    from jampack_tpu.kernels.rans_decode import decode_lanes_tpu
-    from jampack_tpu.stages.ans import (
+    from jampack_jax.kernels.rans_decode import decode_lanes_device
+    from jampack_jax.stages.ans import (
         ans_encode_chunk,
         lane_rlen,
         read_chunk_header,
         read_lane_table,
     )
-    from jampack_tpu.stages.ans import decode_pairs
+    from jampack_jax.stages.ans import decode_pairs
 
     data = np.repeat(RNG.integers(0, 40, 900, dtype=np.uint8),
                      RNG.integers(1, 30, 900)).astype(np.uint8)[:17001]
@@ -158,25 +158,25 @@ def test_wide_decoder_matches_scalar_kernel():
     rlens = np.asarray([lane_rlen(rlen, lanes, l) for l in range(lanes)],
                        np.int32)
     buf = np.frombuffer(blob, np.uint8)
-    got = decode_lanes_tpu(buf, starts, rlens)
+    got = decode_lanes_device(buf, starts, rlens)
     for l in range(lanes):
         want = decode_pairs(view, int(starts[l]), int(rlens[l]))
         assert np.array_equal(got[l, : rlens[l]], want), l
 
 
-def test_ibwt_tpu_past_2_23_boundary():
+def test_ibwt_device_past_2_23_boundary():
     """Regression: the combined LF-map packing overflowed int32 once
     nlen > 2^23 (lf << 8 needs 24+8 bits) — silently corrupting inverse
     BWT on stage buffers over 8,388,608 bytes (seen at 8,388,840)."""
     import numpy as np
 
-    from jampack_tpu.kernels.ibwt import inverse_bwt_tpu
-    from jampack_tpu.stages.bwt import forward_bwt
+    from jampack_jax.kernels.ibwt import inverse_bwt_device
+    from jampack_jax.stages.bwt import forward_bwt
 
     n = (1 << 23) + 240  # nlen lands just past the int32-packing boundary
     rng = np.random.default_rng(9)
     alpha = np.frombuffer(b" etaoinshrdlu.,\n", dtype=np.uint8)
     data = alpha[rng.integers(0, alpha.size, n)]
     buf = forward_bwt(data, 120)
-    out = inverse_bwt_tpu(buf, 120)
+    out = inverse_bwt_device(buf, 120)
     assert np.array_equal(out, data)

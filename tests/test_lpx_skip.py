@@ -1,6 +1,6 @@
 """Lpx skip flag (JT3 ext word lpx_spans == 0) and the per-block auto gate.
 
-Round-4 native-container freedom (VERDICT r3 #5b): the encoder may skip the
+Round-4 native-container freedom: the encoder may skip the
 Lpx stage on blocks where its measured gain is below threshold, writing
 spans=0 into the JT3 ext word; the decoder then skips the decode chain's
 dominant serial-walk term.  Reference parity context: the reference always
@@ -12,8 +12,8 @@ import io
 import numpy as np
 import pytest
 
-from jampack_tpu.format import framing
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax.format import framing
+from jampack_jax.runtime.pipeline import (
     Engine, Options, compress_block, compress_block_ex, compress_stream,
     decompress_block, decompress_stream)
 
@@ -77,7 +77,7 @@ def test_auto_stream_roundtrip_mixed_blocks():
     """compress_stream frames each block with ITS chosen span word; the
     stock decoder reads the mix back bit-exactly.  Blocks are the 1 MB
     framing minimum (Options clamps below it)."""
-    from jampack_tpu.runtime.engines import NativeEngine
+    from jampack_jax.runtime.engines import NativeEngine
 
     mb = 1 << 20
     blocks = [_records(mb), _random(mb)]
@@ -101,7 +101,7 @@ def test_auto_stream_roundtrip_mixed_blocks():
 
 
 def test_native_engine_spans0_roundtrip():
-    from jampack_tpu.runtime.engines import NativeEngine
+    from jampack_jax.runtime.engines import NativeEngine
 
     data = _records(6000)
     opt = Options(blocksize=1 << 20, lpx_spans=0)
@@ -136,7 +136,7 @@ def test_framing_negative_spans_corrupt():
 
 
 def test_fused_device_decode_spans0():
-    from jampack_tpu.runtime.device_decode import decode_block_device
+    from jampack_jax.runtime.device_decode import decode_block_device
 
     data = _records(9000)
     opt = Options(blocksize=1 << 20, filters=1, rans_lanes=4, ans_chunk=2048,
@@ -149,7 +149,7 @@ def test_fused_device_decode_spans0():
 
 
 def test_fused_device_encode_spans0():
-    from jampack_tpu.runtime.device_encode import encode_block_device
+    from jampack_jax.runtime.device_encode import encode_block_device
 
     data = _records(5000)
     opt = Options(blocksize=1 << 20, match_finder=3, filters=0, rans_lanes=4,
@@ -161,7 +161,7 @@ def test_fused_device_encode_spans0():
 
 
 def test_cli_auto_flag_roundtrip(tmp_path):
-    from jampack_tpu.cli import _parse, run
+    from jampack_jax.cli import _parse, run
 
     _, _, _, opt, _ = _parse(["jam", "c", "a", "b", "-Sa"])
     assert opt.lpx_auto
@@ -195,7 +195,7 @@ def test_fused_archive_encode_auto_routes_to_host_gate(tmp_path):
     byte-identical choices."""
     import io
 
-    from jampack_tpu.runtime.sharding import encode_archive_sharded, make_mesh
+    from jampack_jax.runtime.sharding import encode_archive_sharded, make_mesh
 
     mesh = make_mesh(1)
     mb = 1 << 20
@@ -237,7 +237,7 @@ def test_device_gate_matches_host_gate():
     """encode_block_device_ex under lpx_auto makes the SAME per-block
     span choice and the SAME bytes as compress_block_ex (the gate is
     shared integer arithmetic, host np vs device int32)."""
-    from jampack_tpu.runtime.device_encode import encode_block_device_ex
+    from jampack_jax.runtime.device_encode import encode_block_device_ex
 
     for gen in (_records, _random):
         data = gen(200_000)

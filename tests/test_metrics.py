@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from jampack_tpu.runtime.engines import NativeEngine
-from jampack_tpu.runtime.metrics import InstrumentedEngine, device_trace
+from jampack_jax.runtime.engines import NativeEngine
+from jampack_jax.runtime.metrics import InstrumentedEngine, device_trace
 
 
 def test_instrumented_engine_collects_per_stage_metrics():
@@ -44,10 +44,10 @@ def test_fused_compute_wall_helpers_smoke():
     CPU backend so bench.py's *_compute_* keys cannot rot silently."""
     import numpy as np
 
-    from jampack_tpu.runtime.engines import NativeEngine
-    from jampack_tpu.runtime.metrics import (fused_decode_compute_wall,
+    from jampack_jax.runtime.engines import NativeEngine
+    from jampack_jax.runtime.metrics import (fused_decode_compute_wall,
                                              fused_encode_compute_wall)
-    from jampack_tpu.runtime.pipeline import Options, compress_block_ex
+    from jampack_jax.runtime.pipeline import Options, compress_block_ex
 
     rng = np.random.default_rng(3)
     data = rng.integers(0, 8, 6000).astype(np.uint8)

@@ -5,22 +5,22 @@ import io
 import numpy as np
 import pytest
 
-pytest.importorskip("jampack_tpu.native")
+pytest.importorskip("jampack_jax.native")
 
-from jampack_tpu import native
-from jampack_tpu.format.checksum import integrity_check
-from jampack_tpu.runtime.engines import NativeEngine
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax import native
+from jampack_jax.format.checksum import integrity_check
+from jampack_jax.runtime.engines import NativeEngine
+from jampack_jax.runtime.pipeline import (
     Engine,
     Options,
     compress_stream,
     decompress_stream,
 )
-from jampack_tpu.stages.ans import ans_decode, ans_encode
-from jampack_tpu.stages.bwt import forward_bwt, inverse_bwt, suffix_array
-from jampack_tpu.stages.filters import filters_decode, filters_encode
-from jampack_tpu.stages.lpx import lpx_decode, lpx_encode
-from jampack_tpu.stages.lz77 import lz77_decode, lz77_dedupe_encode
+from jampack_jax.stages.ans import ans_decode, ans_encode
+from jampack_jax.stages.bwt import forward_bwt, inverse_bwt, suffix_array
+from jampack_jax.stages.filters import filters_decode, filters_encode
+from jampack_jax.stages.lpx import lpx_decode, lpx_encode
+from jampack_jax.stages.lz77 import lz77_decode, lz77_dedupe_encode
 
 RNG = np.random.default_rng(555)
 
@@ -148,7 +148,7 @@ def test_native_engine_vs_oracle(oracle, tmp_path):
 # ---- decoder hardening: crafted/corrupt inputs must fail cleanly ----
 
 def test_native_decoders_survive_garbage():
-    from jampack_tpu import native
+    from jampack_jax import native
 
     rng = np.random.default_rng(0xDEAD)
     for trial in range(30):
@@ -168,8 +168,8 @@ def test_native_decoders_survive_garbage():
 def test_native_rle0_overflow_stream_rejected():
     """64+ consecutive {0,1} RLE symbols must not overflow the run counter
     into an out-of-bounds zero fill (crafted-chunk hardening)."""
-    from jampack_tpu import native
-    from jampack_tpu.stages.ans import encode_pairs, write_chunk_header
+    from jampack_jax import native
+    from jampack_jax.stages.ans import encode_pairs, write_chunk_header
 
     syms = np.ones(80, dtype=np.uint16)  # 80 run-extension bits
     payload = encode_pairs(syms)
@@ -181,7 +181,7 @@ def test_native_rle0_overflow_stream_rejected():
 
 
 def test_native_bwt_inverse_bad_anchors_rejected():
-    from jampack_tpu import native
+    from jampack_jax import native
 
     good = native.bwt_forward(np.arange(240, dtype=np.uint8) % 251, 120)
     bad = good.copy()
@@ -194,7 +194,7 @@ def test_native_ans_truncated_payload_tail_fails_cleanly():
     """Chunks whose rANS payload is cut to within 2 bytes of the end
     exercise the refill fallback (rdec_advance's fast path needs >= 2
     bytes); every truncation point must fail cleanly, never crash."""
-    from jampack_tpu import native
+    from jampack_jax import native
 
     data = (np.arange(5000, dtype=np.int32) % 37).astype(np.uint8)
     blob = np.asarray(native.ans_encode(data), dtype=np.uint8)

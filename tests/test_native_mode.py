@@ -5,8 +5,8 @@ import io
 import numpy as np
 import pytest
 
-from jampack_tpu.runtime.engines import NativeEngine, TpuEngine
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax.runtime.engines import NativeEngine, DeviceEngine
+from jampack_jax.runtime.pipeline import (
     Engine,
     Options,
     compress_stream,
@@ -35,7 +35,7 @@ def test_native_mode_cross_engine():
     opt = Options(filters=0, anchor_units=960, ans_chunk=128 << 10)
     arc = io.BytesIO()
     compress_stream(io.BytesIO(DATA), arc, opt, engine=NativeEngine())
-    for engine in (Engine(), NativeEngine(), TpuEngine()):
+    for engine in (Engine(), NativeEngine(), DeviceEngine()):
         back = io.BytesIO()
         decompress_stream(io.BytesIO(arc.getvalue()), back, engine=engine)
         assert back.getvalue() == DATA
@@ -68,7 +68,7 @@ def test_jtx_magic_only_for_native_units():
 
 @pytest.mark.parametrize("lanes", [2, 8, 32])
 def test_lanes_roundtrip_spec(lanes):
-    from jampack_tpu.stages.ans import ans_decode, ans_encode
+    from jampack_jax.stages.ans import ans_decode, ans_encode
 
     data = np.frombuffer(DATA[:50000], dtype=np.uint8)
     blob = ans_encode(data, 1 << 20, lanes)
@@ -77,8 +77,8 @@ def test_lanes_roundtrip_spec(lanes):
 
 @pytest.mark.parametrize("lanes", [2, 16])
 def test_lanes_native_matches_spec(lanes):
-    from jampack_tpu import native
-    from jampack_tpu.stages.ans import ans_decode, ans_encode
+    from jampack_jax import native
+    from jampack_jax.stages.ans import ans_decode, ans_encode
 
     data = np.frombuffer(DATA[:30000], dtype=np.uint8)
     spec_blob = ans_encode(data, 1 << 20, lanes)
@@ -89,13 +89,13 @@ def test_lanes_native_matches_spec(lanes):
     assert np.array_equal(out, data)
 
 
-def test_lanes_tpu_decode_matches_spec():
-    from jampack_tpu.runtime.engines import TpuEngine
-    from jampack_tpu.stages.ans import ans_encode
+def test_lanes_device_decode_matches_spec():
+    from jampack_jax.runtime.engines import DeviceEngine
+    from jampack_jax.stages.ans import ans_encode
 
     data = np.frombuffer(DATA[:30000], dtype=np.uint8)
     blob = ans_encode(data, 1 << 20, lanes=8)
-    out = TpuEngine().ans_decode(np.frombuffer(blob, dtype=np.uint8), lanes=8)
+    out = DeviceEngine().ans_decode(np.frombuffer(blob, dtype=np.uint8), lanes=8)
     assert np.array_equal(out, data)
 
 
@@ -105,7 +105,7 @@ def test_lanes_stream_roundtrip_cross_engine(lanes):
     arc = io.BytesIO()
     compress_stream(io.BytesIO(DATA), arc, opt, engine=NativeEngine())
     assert arc.getvalue()[:3] == b"JTX"
-    for engine in (Engine(), NativeEngine(), TpuEngine()):
+    for engine in (Engine(), NativeEngine(), DeviceEngine()):
         back = io.BytesIO()
         decompress_stream(io.BytesIO(arc.getvalue()), back, engine=engine)
         assert back.getvalue() == DATA
@@ -122,7 +122,7 @@ def test_lanes_with_units_and_chunks():
 
 
 def test_lanes_edge_sizes():
-    from jampack_tpu.stages.ans import ans_decode, ans_encode
+    from jampack_jax.stages.ans import ans_decode, ans_encode
 
     for n in (0, 1, 2, 7):
         data = np.frombuffer(DATA[:n], dtype=np.uint8)
@@ -163,7 +163,7 @@ def test_lanes_crc_flip_detected():
 
 
 def test_lanes_corrupt_lane_table_detected_spec():
-    from jampack_tpu.stages.ans import ans_decode, ans_encode
+    from jampack_jax.stages.ans import ans_decode, ans_encode
 
     data = np.frombuffer(DATA[:20000], dtype=np.uint8)
     blob = bytearray(ans_encode(data, 1 << 20, lanes=4))
@@ -178,7 +178,7 @@ def test_rans_lanes_validated_at_boundary():
     # lanes < 2 normalize to the classic 4-state stream; lanes beyond the
     # supported interleave are rejected before any engine can frame a
     # header that disagrees with its payload (native clamps at 4096)
-    from jampack_tpu.runtime.pipeline import validate_rans_lanes
+    from jampack_jax.runtime.pipeline import validate_rans_lanes
 
     assert Options(rans_lanes=0).rans_lanes == 0
     assert Options(rans_lanes=1).rans_lanes == 0
@@ -190,7 +190,7 @@ def test_rans_lanes_validated_at_boundary():
 
 
 def test_framing_rejects_out_of_range_lanes():
-    from jampack_tpu.format import framing
+    from jampack_jax.format import framing
 
     buf = io.BytesIO()
     framing.write_block(buf, 0, b"xx", 1 << 20, units=480, lanes=4)
@@ -205,13 +205,13 @@ def test_framing_rejects_out_of_range_lanes():
         framing.read_block(io.BytesIO(bytes(raw)))
 
 
-def test_tpu_decode_rejects_corrupt_lane_table():
-    from jampack_tpu.stages.ans import ans_encode
+def test_device_decode_rejects_corrupt_lane_table():
+    from jampack_jax.stages.ans import ans_encode
 
     data = np.frombuffer(DATA[:20000], dtype=np.uint8)
     blob = ans_encode(data, 1 << 20, lanes=4)
     with pytest.raises(ValueError):
-        got = TpuEngine().ans_decode(
+        got = DeviceEngine().ans_decode(
             np.frombuffer(blob, dtype=np.uint8), lanes=8
         )
         if not np.array_equal(got, data):
@@ -242,7 +242,7 @@ def test_lpx_spans_default_stays_jam():
 
 
 def test_lpx_spans_validated():
-    from jampack_tpu.runtime.pipeline import validate_lpx_spans
+    from jampack_jax.runtime.pipeline import validate_lpx_spans
 
     # 0 is VALID since round 4 (Lpx stage skipped, framing.py); negatives
     # and oversize still rejected
@@ -252,7 +252,7 @@ def test_lpx_spans_validated():
     with pytest.raises(ValueError):
         validate_lpx_spans((1 << 16) + 1)
     # framing rejects out-of-range span words
-    from jampack_tpu.format import framing
+    from jampack_jax.format import framing
     import struct
 
     buf = io.BytesIO()

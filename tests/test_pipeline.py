@@ -10,7 +10,7 @@ import io
 import numpy as np
 import pytest
 
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax.runtime.pipeline import (
     Options,
     compress_block,
     compress_stream,
@@ -115,7 +115,7 @@ def test_ref_m1_m2_cross_decode(tmp_path, oracle):
 def test_garbage_streams_raise_cleanly():
     import io
 
-    from jampack_tpu.runtime.pipeline import decompress_stream
+    from jampack_jax.runtime.pipeline import decompress_stream
 
     rng = np.random.default_rng(0xF00D)
     for trial in range(20):
@@ -131,7 +131,7 @@ def test_valid_header_garbage_payload_raises():
     import io
     import struct
 
-    from jampack_tpu.runtime.pipeline import decompress_stream
+    from jampack_jax.runtime.pipeline import decompress_stream
 
     rng = np.random.default_rng(0xBEEF)
     payload = bytes(rng.integers(0, 256, 3000, dtype=np.uint8))
@@ -141,9 +141,9 @@ def test_valid_header_garbage_payload_raises():
 
 
 def test_lz_decode_rejects_bad_offset():
-    from jampack_tpu.stages.lz77 import lz77_decode, write_token
+    from jampack_jax.stages.lz77 import lz77_decode, write_token
 
-    from jampack_tpu.format.constants import LZ_MIN_MATCH
+    from jampack_jax.format.constants import LZ_MIN_MATCH
 
     # token demands a copy from before the start of output
     bad = (write_token(300, 0, 9999)

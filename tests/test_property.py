@@ -7,8 +7,8 @@ import io
 import numpy as np
 import pytest
 
-from jampack_tpu.runtime.engines import NativeEngine, TpuEngine
-from jampack_tpu.runtime.pipeline import (
+from jampack_jax.runtime.engines import NativeEngine, DeviceEngine
+from jampack_jax.runtime.pipeline import (
     Engine,
     Options,
     compress_stream,
@@ -24,7 +24,7 @@ def _mixed_input(n):
     base = np.arange(0, n, 1, dtype=np.int64)
     parts.append(((base * 7) % 253).astype(np.uint8)[: n // 4])  # stride
     parts.append(np.frombuffer(
-        (b"jam jam jampack tpu stream " * (n // 100 + 1))[: n // 4], np.uint8))
+        (b"jam jam jampack jax stream " * (n // 100 + 1))[: n // 4], np.uint8))
     parts.append(RNG.integers(0, 256, n // 4, dtype=np.uint8))  # noise
     parts.append(np.zeros(n - 3 * (n // 4), dtype=np.uint8))  # runs
     return np.concatenate(parts).tobytes()
@@ -47,7 +47,7 @@ def test_cross_engine_matrix(cfg):
     arc = io.BytesIO()
     compress_stream(io.BytesIO(data), arc, opt, engine=NativeEngine())
     blob = arc.getvalue()
-    for engine in (NativeEngine(), TpuEngine()):
+    for engine in (NativeEngine(), DeviceEngine()):
         out = io.BytesIO()
         decompress_stream(io.BytesIO(blob), out, engine=engine)
         assert out.getvalue() == data, (cfg, engine.name)
@@ -59,7 +59,7 @@ def test_spec_engine_one_config():
     data = _mixed_input(60_000)
     arc = io.BytesIO()
     compress_stream(io.BytesIO(data), arc, opt, engine=Engine())
-    for engine in (Engine(), NativeEngine(), TpuEngine()):
+    for engine in (Engine(), NativeEngine(), DeviceEngine()):
         out = io.BytesIO()
         decompress_stream(io.BytesIO(arc.getvalue()), out, engine=engine)
         assert out.getvalue() == data

@@ -1,10 +1,9 @@
 """Filtered prefix doubling vs the executable-spec suffix array.
 
-The filtered-doubling experiment lives in tools/sa_filtered.py (retired
-from the package in round 4 — measured slower than the straight doubling
-kernel on this platform, see ARCHITECTURE.md); this test keeps the tool
-honest against the spec since it remains the documented starting point
-for a device-resident cond-switch variant."""
+The filtered-doubling experiment lives in tools/sa_filtered.py (not wired
+into the package); this test keeps the tool honest against the spec since
+it remains the documented starting point for a device-resident
+cond-switch variant."""
 
 import pathlib
 import sys
@@ -13,9 +12,9 @@ import numpy as np
 import pytest
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
-from sa_filtered import suffix_array_tpu_filtered  # noqa: E402
+from sa_filtered import suffix_array_device_filtered  # noqa: E402
 
-from jampack_tpu.stages.bwt import suffix_array  # noqa: E402
+from jampack_jax.stages.bwt import suffix_array  # noqa: E402
 
 RNG = np.random.default_rng(99)
 
@@ -39,7 +38,7 @@ def cases():
 @pytest.mark.parametrize("idx", range(8))
 def test_filtered_matches_spec(idx):
     data = list(cases())[idx]
-    assert np.array_equal(suffix_array_tpu_filtered(data), suffix_array(data))
+    assert np.array_equal(suffix_array_device_filtered(data), suffix_array(data))
 
 
 @pytest.mark.parametrize("idx", range(8))

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from jampack_tpu.stages.bwt import forward_bwt, inverse_bwt, suffix_array
-from jampack_tpu.stages.filters import (
+from jampack_jax.stages.bwt import forward_bwt, inverse_bwt, suffix_array
+from jampack_jax.stages.filters import (
     delta_decode,
     delta_encode,
     filters_decode,
@@ -16,10 +16,10 @@ from jampack_tpu.stages.filters import (
     reorder,
     unreorder,
 )
-from jampack_tpu.stages.lpx import lpx_decode, lpx_encode
-from jampack_tpu.stages.lz77 import lz77_decode, lz77_dedupe_encode
-from jampack_tpu.stages.rank import rank_decode, rank_encode
-from jampack_tpu.stages.rle0 import rle0_decode, rle0_encode
+from jampack_jax.stages.lpx import lpx_decode, lpx_encode
+from jampack_jax.stages.lz77 import lz77_decode, lz77_dedupe_encode
+from jampack_jax.stages.rank import rank_decode, rank_encode
+from jampack_jax.stages.rle0 import rle0_decode, rle0_encode
 
 RNG = np.random.default_rng(42)
 

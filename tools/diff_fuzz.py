@@ -21,8 +21,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from jampack_tpu.runtime.engines import NativeEngine  # noqa: E402
-from jampack_tpu.runtime.pipeline import (  # noqa: E402
+from jampack_jax.runtime.engines import NativeEngine  # noqa: E402
+from jampack_jax.runtime.pipeline import (  # noqa: E402
     Options,
     compress_stream,
     decompress_stream,
@@ -50,7 +50,7 @@ def gen_input(rng: np.random.Generator) -> bytes:
             ) % 7
             parts.append((rows % 256).astype(np.uint8).tobytes())
         elif kind == 3:  # textish
-            words = [b"the ", b"quick ", b"brown ", b"fox ", b"jam ", b"tpu "]
+            words = [b"the ", b"quick ", b"brown ", b"fox ", b"jam ", b"jax "]
             s = b"".join(words[int(i)] for i in rng.integers(0, 6, ln // 4 + 1))
             parts.append(s[:ln])
         elif kind == 4:  # dedupe bait (large repeats)

@@ -57,8 +57,8 @@ def corpora(n):
 
 
 def main():
-    from jampack_tpu.runtime.engines import NativeEngine
-    from jampack_tpu.runtime.pipeline import (
+    from jampack_jax.runtime.engines import NativeEngine
+    from jampack_jax.runtime.pipeline import (
         LPX_AUTO_MIN_ZERO_GAIN, Options, compress_block_ex)
 
     mb = float(sys.argv[1]) if len(sys.argv) > 1 else 2.0

@@ -1,10 +1,10 @@
-"""Virtual-mesh scaling harness (VERDICT r1 item 8).
+"""Virtual-mesh scaling harness.
 
 Measures the sharded full-decode path (runtime/sharding.py) at mesh sizes
 1/2/4/8 on the virtual CPU backend, decoding the same archive each time.
 
-On this 1-physical-core host the D virtual devices time-share the core, so
-wall-clock cannot show speedup; what CAN be measured honestly is the
+The D virtual devices time-share the host's cores, so wall-clock cannot
+show speedup; what CAN be measured honestly is the
 sharding *overhead*: with perfect data parallelism the total work (and so
 1-core wall time) is independent of D — any growth over the D=1 wall is
 redundant work introduced by the mesh path (padding, collectives, batch
@@ -32,11 +32,9 @@ import numpy as np
 def main():
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
-
-    from jampack_tpu.runtime.pipeline import (Engine, Options,
+    from jampack_jax.runtime.pipeline import (Engine, Options,
                                               compress_stream)
-    from jampack_tpu.runtime.sharding import decode_archive_sharded, make_mesh
+    from jampack_jax.runtime.sharding import decode_archive_sharded, make_mesh
 
     rng = np.random.default_rng(17)
     n_dev = len(jax.devices())
@@ -99,7 +97,7 @@ def main():
 
     # ---- encode direction: the sharded fused encode chain on uniform
     # blocks (the store/filters-off config it supports)
-    from jampack_tpu.runtime.sharding import encode_archive_sharded
+    from jampack_jax.runtime.sharding import encode_archive_sharded
 
     eopt = Options(blocksize=1 << 20, filters=0, match_finder=3,
                    rans_lanes=4, ans_chunk=2048, anchor_units=16,
