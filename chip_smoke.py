@@ -194,13 +194,11 @@ def jam_default(workdir, block):
 def multi_card(workdir, data, flags):
     """The corpus across every local device (the CLI's mesh): archive
     bytes equal to a 1-device mesh's and to the native engine's, decode
-    bit-exact on both meshes."""
+    bit-exact."""
     import jax
 
     from jampack_jax.cli import _parse
-    from jampack_jax.runtime.sharding import (decode_archive_sharded,
-                                              encode_archive_sharded,
-                                              make_mesh)
+    from jampack_jax.runtime.sharding import encode_archive_sharded, make_mesh
 
     if len(jax.devices()) < 2:
         raise RuntimeError("needs several devices, found 1")
@@ -214,11 +212,6 @@ def multi_card(workdir, data, flags):
     out["encode_1card_s"] = time.perf_counter() - t0
     if one.getvalue() != _read(os.path.join(workdir, "cards.fused.jam")):
         raise AssertionError("multi-card archive != 1-card archive")
-    t0 = time.perf_counter()
-    back = decode_archive_sharded(io.BytesIO(one.getvalue()), make_mesh(1))
-    out["decode_1card_s"] = time.perf_counter() - t0
-    if back != data:
-        raise AssertionError("1-card decode != input")
     _check_routes(routes1, "1-card encode")
     return out
 

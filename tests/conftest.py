@@ -18,8 +18,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 ORACLE = os.path.join(REPO, "build", "jampack_ref")
-# the reference's C++ sources, checked out beside this repository
-REFERENCE_SRC = os.path.join(os.path.dirname(REPO), "reference")
+# the directory of the reference's C++ sources; named explicitly, with no
+# default, so the tests compile only sources the caller pointed them at
+REFERENCE_SRC = os.environ.get("JAMPACK_REFERENCE_SRC")
 
 
 def _ensure_oracle():
@@ -28,6 +29,8 @@ def _ensure_oracle():
     sources exist."""
     if os.path.exists(ORACLE):
         return ORACLE
+    if not REFERENCE_SRC:
+        return None
     srcs = sorted(glob.glob(os.path.join(REFERENCE_SRC, "*.cpp")))
     if not srcs:
         return None
@@ -43,8 +46,10 @@ def _ensure_oracle():
 @pytest.fixture(scope="session")
 def oracle():
     if _ensure_oracle() is None:
-        pytest.skip("reference oracle unavailable: no build/jampack_ref and "
-                    f"no reference sources in {REFERENCE_SRC}")
+        where = (f"no reference sources in {REFERENCE_SRC}" if REFERENCE_SRC
+                 else "JAMPACK_REFERENCE_SRC is unset")
+        pytest.skip(f"reference oracle unavailable: no build/jampack_ref "
+                    f"and {where}")
 
     class Oracle:
         path = ORACLE
